@@ -42,7 +42,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="savont-tpu",
         description=(
-            "savont-tpu - TPU-native high-resolution ASV generation and "
+            "savont-tpu - high-resolution ASV generation and "
             "taxonomic profiling for ONT R10.4/HiFi long-read amplicon sequencing"
         ),
     )

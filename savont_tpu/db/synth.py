@@ -1,11 +1,11 @@
 """Realistic EMU-format database slices for offline validation.
 
-The classify/sintax validation story needs a database with a REAL 16S
-length/composition/divergence structure (VERDICT r4 item 7), but the
-build environment has no network, so EMU/SILVA cannot be downloaded.
-This module vendors the next-best thing: an EMU-format slice SEEDED FROM
-REAL 16S sequences (the Zymo mock-community reference ASVs — real
-bacterial rRNA operons), expanded with phylogenetically graded decoys:
+The classify/sintax validation story needs a database with a 16S-like
+length/composition/divergence structure, without a network to download
+EMU/SILVA.  This module builds the next-best thing: an EMU-format slice
+seeded from 16S sequences (the seeded mock community's templates,
+db/community.py, or real rRNA operons), expanded with phylogenetically
+graded decoys:
 
   - intra-species operon variants     (~0.3% divergence, same species)
   - sibling species in the genus      (2-8% divergence, own species rows)

@@ -1,6 +1,6 @@
 """Seed-chain-extend aligner (the reference's minimap2 role).
 
-Design (TPU-first):
+Design (device-first):
 - minimizer anchors + host chaining pick strand and a diagonal corridor;
 - a BANDED affine Smith-Waterman fills the corridor.  The row recurrence is
   expressed with a prefix-max scan (no within-row sequential dependency):
@@ -14,8 +14,8 @@ Design (TPU-first):
   another E cell is always dominated by extending the originating G cell,
   so E depends only on G of the same row.  Every row is then a handful of
   elementwise/scan vector ops of width = band; this exact formulation runs
-  vectorized in NumPy here and batched on TPU in align_jax.py (rows =
-  lax.scan steps, band = VPU lanes).
+  vectorized in NumPy here and batched on the device in align_jax.py
+  (rows = lax.scan steps, band = the minor axis).
 
 Replaces reference call sites: alignment.rs:284,432,1232,1545,1841 and
 chimera.rs:88,416 and classify.rs:131-145 (minimap2 map_ont / lrhq).

@@ -2,7 +2,7 @@
 
 These are exact functional equivalents of the reference's rolling-hash scalar
 loops (seeding.rs), re-expressed as vector ops over whole reads so the same
-code path can run on TPU via JAX on padded batches (see ops/kmers_jax.py).
+code path can run on the device via JAX on padded batches (see ops/kmers_jax.py).
 
 Conventions (all match the reference):
 - k odd, <= 31.  2-bit packing, most-significant bits = first base.

@@ -1,9 +1,9 @@
-"""TPU k-mer kernels: batched split-kmer extraction and syncmer/SNPmer scans
+"""Device k-mer kernels: batched split-kmer extraction and syncmer/SNPmer scans
 over fixed-shape padded read batches.
 
-64-bit k-mers are carried as (hi, lo) uint32 planes because TPU integer
-units are 32-bit; the rolling update is two shifts and a carry.  Per-base
-work is pure VPU element-wise math over a (N_reads, L) batch, so it shards
+64-bit k-mers are carried as (hi, lo) uint32 planes so the kernels need
+no 64-bit mode; the rolling update is two shifts and a carry.  Per-base
+work is pure element-wise math over a (N_reads, L) batch, so it shards
 trivially over a device mesh on the batch axis (reads are data-parallel).
 
 Counting is completed by jnp.unique/segment-reduce on host or device; the

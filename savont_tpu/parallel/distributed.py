@@ -1,23 +1,28 @@
 """Multi-host (multi-controller) scaffolding.
 
-The reference is a single-host rayon tool; the TPU-native scale-out story
-is a jax.distributed multi-controller mesh: one process per host, devices
-pooled into one global Mesh, shardings laid out so collectives ride ICI
-within a host/pod slice and only the tiny EM numerator (an (A,) f32 psum)
-crosses the DCN boundary per iteration (SURVEY.md §5.8, BASELINE.md
-scaling target).
+The reference is a single-host rayon tool; the scale-out story here is a
+jax.distributed multi-controller mesh: devices of every process pooled into
+one global Mesh, with shardings laid out so only the tiny EM numerator (an
+(A,) f32 psum) crosses between hosts per iteration (SURVEY.md §5.8,
+BASELINE.md scaling target).
 
-Activation is by env vars so the CLI stays identical on a laptop and on a
-pod:
+Activation is by env vars so the CLI stays identical on one machine and on
+a cluster:
 
   SAVONT_COORDINATOR   host:port of process 0 (e.g. "10.0.0.1:8476")
   SAVONT_NUM_PROCESSES total process count
   SAVONT_PROCESS_ID    this process's rank
 
 All three set -> `jax.distributed.initialize` is called before the first
-device use; otherwise this is a no-op (single-controller).  The standard
-JAX env vars / TPU pod auto-detection also work by calling
-`jax.distributed.initialize()` with no args: set SAVONT_DISTRIBUTED=auto.
+device use; otherwise this is a no-op (single-controller).  JAX's own
+cluster auto-detection works by calling `jax.distributed.initialize()` with
+no args: set SAVONT_DISTRIBUTED=auto.
+
+One process per card: a JAX process reserves most of a card's memory when
+it first uses it, so a second process on the same card fails.  Process i
+therefore drives card i of its host (`local_device_ids=[i]`) unless the
+launcher chose the cards itself with CUDA_VISIBLE_DEVICES or
+JAX_LOCAL_DEVICE_IDS (several hosts: set one of them per process).
 
 Every process must run the SAME host pipeline (it is deterministic), and
 mesh.shard_reads feeds each process only its addressable shards; replicated
@@ -53,10 +58,14 @@ def maybe_init_from_env() -> bool:
     if mode == "auto":
         jax.distributed.initialize()
     elif coord and nproc and pid:
+        own_card = not (
+            os.environ.get("CUDA_VISIBLE_DEVICES") or os.environ.get("JAX_LOCAL_DEVICE_IDS")
+        )
         jax.distributed.initialize(
             coordinator_address=coord,
             num_processes=int(nproc),
             process_id=int(pid),
+            local_device_ids=[int(pid)] if own_card else None,
         )
     elif coord or nproc or pid:
         # a partial config silently degrading to single-controller would

@@ -4,7 +4,7 @@ tax_ids, Yarza-threshold rank assignment (classify.rs).
 The reference maps each ASV against a minimap2 index of the whole DB; here
 a minimizer hit-count prefilter selects candidate references per ASV and
 the banded kernel aligns against them (batched).  The DB minimizer table is
-a flat sorted (hash, id) array — the structure that shards across chips
+a flat sorted (hash, id) array — the structure that shards across devices
 (each device takes a slice of the DB; hit counts all-reduce).
 """
 from __future__ import annotations
@@ -246,7 +246,7 @@ def classify(args: ClassifyArgs, db: tax.Database) -> None:
         total_dropped += dropped
         if len(cands) == 0:
             continue
-        # NM-only consumer: routes to the TPU kernel under
+        # NM-only consumer: routes to the device kernel under
         # SAVONT_ALIGN_BACKEND=jax, sharding pairs across all devices
         results = align_pairs_nm([(seq, db_records[c][1]) for c in cands])
         hits = [(int(c), m) for c, m in zip(cands, results) if m is not None]

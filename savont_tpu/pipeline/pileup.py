@@ -5,8 +5,8 @@ count MATRICES over (position, quality level, is_ref) — the exact sufficient
 statistics for the reference's quality calibration (alignment.rs:656-779)
 and Bayesian posterior (alignment.rs:936-1021).  CIGARs are expanded to
 per-base op arrays and scattered with bincount, so pileup construction is
-a handful of vector ops per read.  This is also the representation the TPU
-path scatters into on device.
+a handful of vector ops per read.  This is also the representation the device
+path scatters into.
 
 Quality levels: the expanded binned qualities take exactly the 16 values
 33 + 3*level (QualCompact3), so level = (q - 33) / 3.

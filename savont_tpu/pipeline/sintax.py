@@ -118,7 +118,7 @@ def _device_scores(subs: np.ndarray, sentinel: np.uint32, db: tax.Database, n_pa
     """Phase 2, mesh path (SAVONT_SINTAX_BACKEND=jax): the database is
     sharded across ALL visible devices (BASELINE.json config 5).  Each
     device scores its reference shard against the replicated query matrix;
-    per-pair (score, earliest-ref) winners are pmax-reduced over ICI via a
+    per-pair (score, earliest-ref) winners are pmax-reduced across the mesh via a
     packed uint32 key, so outputs are bit-identical to the host stream.
     References stream through fixed-shape (chunk, L) buckets to bound
     memory and recompiles."""

@@ -222,9 +222,9 @@ def read_to_split_kmers(args: ClusterArgs) -> tuple[np.ndarray, np.ndarray]:
             phred_list[i] = p
     n_reads = len(codes_list)
     if os.environ.get("SAVONT_DEVICE_KMERS"):
-        # TPU path: batched (hi,lo)-plane split-kmer extraction on device
+        # device path: batched (hi,lo)-plane split-kmer extraction on device
         # (ops/kmers_jax.py), bit-exact vs the host scan.  Worth it when the
-        # chip is otherwise idle or read batches are large.
+        # device is otherwise idle or read batches are large.
         from ..ops.kmers_jax import device_split_kmers
 
         per_read = device_split_kmers(codes_list, phred_list, k, args.minimum_base_quality)

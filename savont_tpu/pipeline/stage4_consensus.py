@@ -1,7 +1,7 @@
 """Stage 4: consensus generation + pileup-based Bayesian polishing.
 
 Reference: alignment.rs:190-1153.  The spoa POA graph (C++ FFI) is replaced
-by a TPU-friendly seed + iterative pileup-vote consensus: pick the
+by a batch-friendly seed + iterative pileup-vote consensus: pick the
 90th-percentile-length read as template, batch-align the top-quality reads
 to it with the banded kernel, and take the quality-weighted majority at each
 column (including short insertions).  The reference's own Bayesian polish
@@ -9,7 +9,7 @@ column (including short insertions).  The reference's own Bayesian polish
 runs unchanged on pileups of up to 250 reads.
 
 All alignments across ALL clusters are batched into single banded-DP sweeps
-(ops/align_batch) — the batching discipline that buys TPU throughput.
+(ops/align_batch) — the batching discipline that keeps device dispatches few and large.
 """
 from __future__ import annotations
 

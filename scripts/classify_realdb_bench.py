@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Prefilter recall vs an exhaustive-align oracle on the REALISTIC
-Zymo-seeded EMU slice (VERDICT r4 item 7).
+"""Prefilter recall vs an exhaustive-align oracle on the realistic
+template-seeded EMU slice.
 
 Unlike classify_scale_bench.py (uniform synthetic families), the DB here
-is built by savont_tpu/db/synth.py from the REAL Zymo 16S operons with
-phylogenetically graded decoys (0.3% / 2-8% / 10-20% divergence + length
-variation) — the regime a real EMU/SILVA prefilter faces.  Queries are
-(a) the 18 pipeline ASVs from the bundled Zymo reads and (b) raw
-error-laden Zymo READS.  Recall = the minimizer candidate set attains the
+is built by savont_tpu/db/synth.py from the seeded mock community's
+16S-like templates (db/community.py) with phylogenetically graded decoys
+(0.3% / 2-8% / 10-20% divergence + length variation) — the regime a real
+EMU/SILVA prefilter faces.  Queries are (a) the pipeline ASVs of the
+community's 1,000 reads and (b) raw error-laden reads.  Recall = the minimizer candidate set attains the
 exhaustive best alignment score over the whole DB.
 
 Appends a line to CLASSIFY_SCALE.json.  Usage:
@@ -24,8 +24,6 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-ZYMO = Path("/root/reference/tests/data/ont_zymo_1000.trimmed.fq.gz")
-ZYMO_REF = Path("/root/reference/tests/data/zymo_ref_asvs.fa.gz")
 
 
 def main() -> int:
@@ -33,6 +31,7 @@ def main() -> int:
     n_read_q = int(sys.argv[2]) if len(sys.argv) > 2 else 24
 
     from savont_tpu.config import ClusterArgs
+    from savont_tpu.db.community import write_community
     from savont_tpu.db.synth import build_emu_slice
     from savont_tpu.io.fastx import read_fastx
     from savont_tpu.ops.align_batch import align_pairs_nm_indexed
@@ -41,9 +40,10 @@ def main() -> int:
 
     rng = np.random.default_rng(3)
     with tempfile.TemporaryDirectory(prefix="realdb_") as td:
-        print(f"building {n_refs}-ref Zymo-seeded EMU slice...", flush=True)
+        comm = write_community(Path(td) / "community", 1000)
+        print(f"building {n_refs}-ref template-seeded EMU slice...", flush=True)
         t0 = time.time()
-        info = build_emu_slice(ZYMO_REF, td, n_refs=n_refs, seed=11)
+        info = build_emu_slice(comm.templates, td, n_refs=n_refs, seed=11)
         db_records = [
             (r.id, r.seq.upper())
             for r in read_fastx(str(Path(info["out"]) / "species_taxid.fasta"))
@@ -55,9 +55,9 @@ def main() -> int:
 
         print("running asv pipeline for query ASVs...", flush=True)
         out = Path(td) / "asvout"
-        run_cluster(ClusterArgs(input_files=[str(ZYMO)], output_dir=str(out), threads=4))
+        run_cluster(ClusterArgs(input_files=[str(comm.reads)], output_dir=str(out), threads=4))
         asv_q = [r.seq.upper() for r in read_fastx(str(out / "final_asvs.fasta"))]
-        reads = [r.seq.upper() for r in read_fastx(str(ZYMO))]
+        reads = [r.seq.upper() for r in read_fastx(str(comm.reads))]
         sel = rng.choice(len(reads), n_read_q, replace=False)
         read_q = [reads[i] for i in sel]
         queries = asv_q + read_q

@@ -1,4 +1,4 @@
-"""SILVA-scale classify validation (VERDICT r3 #7, classify.rs:152-189).
+"""SILVA-scale classify validation (classify.rs:152-189).
 
 Synthesizes a 100k-reference DB (2k families x 50 variants at ~2%
 divergence — the hard case for a prefilter: many near-identical refs),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""100k-read scale benchmark (VERDICT round-3 item 4 evidence).
+"""100k-read scale benchmark.
 
 Generates the same synthetic ONT-like readset construction as bench.py at
 N=100000, runs the full fastq->ASV pipeline best-of-3 with a per-stage

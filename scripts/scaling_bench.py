@@ -7,11 +7,10 @@ parallel/mesh.sharded_stage7_step) on the SAME fixed workload under 1 and
 2 jax.distributed processes and records steady-state pairs/s + efficiency
 to SCALING.json.
 
-On this build VM only CPU virtual devices exist, so the recorded number
-measures the software path (shard_map + psum over the 2-process mesh),
-NOT real ICI/DCN — it proves the measurement methodology and the
-multi-controller code path; run on real multi-host TPU for the BASELINE
-target.  Device count per process is fixed (4) so total devices double
+With CPU virtual devices the recorded number measures the software path
+(shard_map + psum over the 2-process mesh), not a real interconnect — it
+proves the measurement methodology and the multi-controller code path;
+run on GPU hosts for the BASELINE target.  Device count per process is fixed (4) so total devices double
 with process count, matching the "add a host" scaling question.
 
 Usage: python scripts/scaling_bench.py            # orchestrator
@@ -187,7 +186,7 @@ def orchestrate() -> int:
             "overhead — the FIXED workload is split across twice the "
             "devices, so ratio ~1.0 with half the per-host work = clean "
             "weak-scaling signal; ratio >= 0.8 meets the BASELINE bar "
-            "modulo real ICI/DCN.  On real multi-host TPU, efficiency = "
+            "modulo a real interconnect.  On GPU hosts, efficiency = "
             "pairs_per_s_2hosts / (2 * pairs_per_s_1host) >= 0.8."
         ),
     }

@@ -1,47 +1,37 @@
-"""End-to-end classify/sintax against a realistic EMU-format database
-(VERDICT r4 item 7).
+"""End-to-end classify/sintax against a realistic EMU-format database.
 
-No network in this environment, so instead of downloading EMU the test
-builds a loadable EMU-format slice SEEDED FROM REAL 16S sequences (the
-Zymo reference rRNA operons) with 2,000 phylogenetically graded decoy
-refs (savont_tpu/db/synth.py), writes real species_taxid.fasta +
-taxonomy.tsv files to disk, and drives the REAL CLI surface:
+Instead of downloading EMU, the test builds a loadable EMU-format slice
+seeded from the mock community's 16S-like templates (db/community.py) with
+2,000 phylogenetically graded decoy refs (savont_tpu/db/synth.py), writes
+real species_taxid.fasta + taxonomy.tsv files to disk, and drives the REAL
+CLI surface:
 
   asv pipeline -> classify CLI -> asv_mappings.tsv / species_abundance.tsv
   asv pipeline -> sintax CLI   -> sintax output
 
 asserting each pipeline ASV is assigned to the species of its true source
-operon (ground truth from the NM=0 Zymo validation), mirroring the
+template (ground truth from the NM=0 validation), mirroring the
 reference's soft-skipped real-DB integration test
-(/root/reference/tests/integration_test.rs:503-509)."""
-import shutil
-from pathlib import Path
-
+(tests/integration_test.rs:503-509 of savont)."""
 import pytest
-
-ZYMO = Path("/root/reference/tests/data/ont_zymo_1000.trimmed.fq.gz")
-ZYMO_REF = Path("/root/reference/tests/data/zymo_ref_asvs.fa.gz")
-
-pytestmark = pytest.mark.skipif(
-    not (ZYMO.exists() and ZYMO_REF.exists()), reason="Zymo fixtures not present"
-)
 
 
 @pytest.fixture(scope="module")
-def emu_db(tmp_path_factory):
+def emu_db(tmp_path_factory, community):
     from savont_tpu.db.synth import build_emu_slice
 
     out = tmp_path_factory.mktemp("realdb")
-    info = build_emu_slice(ZYMO_REF, out, n_refs=2000, seed=11)
+    info = build_emu_slice(community.templates, out, n_refs=2000, seed=11)
+    info["templates"] = community.templates
     return info
 
 
 @pytest.fixture(scope="module")
-def asv_out(tmp_path_factory):
+def asv_out(tmp_path_factory, community):
     from savont_tpu.cli import main
 
     out = tmp_path_factory.mktemp("asvrun") / "out"
-    rc = main(["asv", str(ZYMO), "-o", str(out), "-t", "4"])
+    rc = main(["asv", str(community.reads), "-o", str(out), "-t", "4"])
     assert rc in (0, None)
     assert (out / "final_asvs.fasta").exists()
     return out
@@ -49,11 +39,11 @@ def asv_out(tmp_path_factory):
 
 def _true_species(emu_db, asv_fasta):
     """Ground truth: per ASV header, the species of its exact-substring
-    source ref (every Zymo ASV validates NM=0 / exact)."""
+    source template (every ASV validates NM=0 / exact)."""
     from savont_tpu.io.fastx import read_fastx
     from savont_tpu.ops.encode import revcomp_bytes
 
-    refs = [(r.id, r.seq.upper()) for r in read_fastx(str(ZYMO_REF))]
+    refs = [(r.id, r.seq.upper()) for r in read_fastx(str(emu_db["templates"]))]
     truth = {}
     for rec in read_fastx(str(asv_fasta)):
         seq = rec.seq.upper()
@@ -113,7 +103,8 @@ def test_sintax_cli_realistic_emu_db(emu_db, asv_out, tmp_path):
     assert files, f"sintax wrote no output in {out}"
     text = "".join(f.read_text() for f in files)
     truth = _true_species(emu_db, asv_out / "final_asvs.fasta")
-    # genus-level sanity: the majority of ASVs bootstrap to a Zymogenus
+    # genus-level sanity: the majority of ASVs bootstrap to a genus of the
+    # seeded species (synth names them Zymogenus)
     n_zymo = text.count("Zymogenus")
     assert n_zymo >= len(truth) // 2, (
         f"expected most of {len(truth)} ASVs at a Zymogenus genus, saw {n_zymo}"

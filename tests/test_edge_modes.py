@@ -140,7 +140,7 @@ def test_mask_low_quality_flag(tmp_path):
     assert (out / "final_asvs.fasta").exists()
 
 
-def test_profile_flag_writes_pstats(tmp_path):
+def test_profile_flag_writes_pstats(tmp_path, community):
     """--profile DIR runs the pipeline normally and writes loadable cProfile
     stats (SURVEY.md §5.1 tracing parity)."""
     import pstats
@@ -151,9 +151,8 @@ def test_profile_flag_writes_pstats(tmp_path):
     prof = tmp_path / "prof"
     r = subprocess.run(
         [sys.executable, "-m", "savont_tpu", "--profile", str(prof), "asv",
-         "/root/reference/tests/data/ont_zymo_1000.trimmed.fq.gz",
-         "-o", str(out), "-t", "2"],
-        capture_output=True, text=True, timeout=280, cwd="/root/repo",
+         str(community.reads), "-o", str(out), "-t", "2"],
+        capture_output=True, text=True, timeout=280, cwd=Path(__file__).parent.parent,
     )
     assert r.returncode == 0, r.stderr[-500:]
     assert (out / "final_asvs.fasta").exists()

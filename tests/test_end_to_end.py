@@ -1,45 +1,37 @@
 """Golden end-to-end test, mirroring the reference's primary acceptance test
-(tests/integration_test.rs:91-160): run `asv` on the bundled 902-read ONT
-Zymo FASTQ and assert every emitted ASV aligns to the 63-sequence Zymo
-reference with NM=0."""
-import os
-from pathlib import Path
-
+(tests/integration_test.rs:91-160): run `asv` on a seeded 1,000-read ONT
+mock community (db/community.py) and assert every emitted ASV aligns to the
+community's templates with NM=0, one ASV per template."""
 import pytest
-
-REF_DATA = Path("/root/reference/tests/data")
-READS = REF_DATA / "ont_zymo_1000.trimmed.fq.gz"
-REF_ASVS = REF_DATA / "zymo_ref_asvs.fa.gz"
 
 
 @pytest.fixture(scope="module")
-def zymo_output(tmp_path_factory):
+def zymo_output(tmp_path_factory, community):
     from savont_tpu.config import ClusterArgs
     from savont_tpu.pipeline.asv import run_cluster
 
-    out = tmp_path_factory.mktemp("zymo_asv")
-    args = ClusterArgs(input_files=[str(READS)], output_dir=str(out), threads=4)
+    out = tmp_path_factory.mktemp("community_asv")
+    args = ClusterArgs(input_files=[str(community.reads)], output_dir=str(out), threads=4)
     run_cluster(args)
     return out
 
 
-@pytest.mark.skipif(not READS.exists(), reason="bundled test data unavailable")
-def test_asv_generation_and_perfect_alignment(zymo_output):
+def test_asv_generation_and_perfect_alignment(zymo_output, community):
     from savont_tpu.validate import validate_asvs
 
     asv_fasta = zymo_output / "final_asvs.fasta"
     assert asv_fasta.exists(), "final_asvs.fasta was not created"
-    results = validate_asvs(str(asv_fasta), str(REF_ASVS))
+    results = validate_asvs(str(asv_fasta), str(community.templates))
     assert results, "savont-tpu produced zero ASVs"
     unmapped = [r.header for r in results if r.nm is None]
     assert not unmapped, f"unmapped ASVs: {unmapped}"
     imperfect = [(r.header, r.nm) for r in results if r.nm != 0]
     assert not imperfect, f"ASVs with NM > 0: {imperfect}"
-    # sanity: expect a good number of ASVs from this community
-    assert len(results) >= 10
+    # every template recovered, each once
+    assert len(results) == community.n_templates
+    assert len({r.ref_hit for r in results}) == community.n_templates
 
 
-@pytest.mark.skipif(not READS.exists(), reason="bundled test data unavailable")
 def test_outputs_structure(zymo_output):
     ft = (zymo_output / "feature-table.tsv").read_text().splitlines()
     assert ft[0].startswith("#OTU ID\t")
@@ -58,7 +50,7 @@ def test_outputs_structure(zymo_output):
     assert (zymo_output / "temp" / "kmer_clusters_stage2.tsv").exists()
 
 
-def test_cli_black_box_run(tmp_path):
+def test_cli_black_box_run(tmp_path, community):
     """Drive the actual CLI end-to-end like integration_test.rs:20,97 does
     with the compiled binary: subprocess `python -m savont_tpu asv`, then
     assert NM=0 on every ASV and feature-table/rep-seqs ID-set equality
@@ -68,7 +60,7 @@ def test_cli_black_box_run(tmp_path):
 
     out = tmp_path / "cli_out"
     r = subprocess.run(
-        [sys.executable, "-m", "savont_tpu", "asv", str(READS),
+        [sys.executable, "-m", "savont_tpu", "asv", str(community.reads),
          "-o", str(out), "-t", "4"],
         capture_output=True, text=True, timeout=600,
     )
@@ -77,8 +69,8 @@ def test_cli_black_box_run(tmp_path):
     assert fasta.exists()
     from savont_tpu.validate import validate_asvs
 
-    results = validate_asvs(str(fasta), str(REF_ASVS))
-    assert results and all(m.nm == 0 for m in results)
+    results = validate_asvs(str(fasta), str(community.templates))
+    assert len(results) == community.n_templates and all(m.nm == 0 for m in results)
 
     headers = [l[1:].split()[0] for l in fasta.read_text().splitlines() if l.startswith(">")]
     ft_lines = (out / "feature-table.tsv").read_text().splitlines()

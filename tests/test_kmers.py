@@ -269,13 +269,13 @@ def test_aggressive_bloom_admission_order_dependent():
     assert got3.tolist() == [42]
 
 
-def test_cached_encoded_invalidates_with_read_cache():
+def test_cached_encoded_invalidates_with_read_cache(community):
     """_cached_encoded memoizes per parse: same records list -> same encode
     objects; clearing _READ_CACHE (what bench.py does between runs) must
     invalidate the encodes too, so no stale arrays cross runs."""
     from savont_tpu.pipeline import stage1_kmers as s1
 
-    path = "/root/reference/tests/data/ont_zymo_1000.trimmed.fq.gz"
+    path = str(community.reads)
     s1._READ_CACHE.clear()
     c1, p1 = s1._cached_encoded(path)
     c2, p2 = s1._cached_encoded(path)
@@ -291,7 +291,7 @@ def test_cached_encoded_invalidates_with_read_cache():
     assert c3 is not c1  # fresh parse -> fresh encode
 
 
-def test_pipeline_with_uncached_records(tmp_path, monkeypatch):
+def test_pipeline_with_uncached_records(tmp_path, monkeypatch, community):
     """With the read cache disabled (file over the size limit), every parse
     re-streams and _cached_encoded must re-encode without storing; the
     pipeline output is unchanged."""
@@ -305,15 +305,11 @@ def test_pipeline_with_uncached_records(tmp_path, monkeypatch):
     s1._ENCODE_CACHE.clear()
     out = tmp_path / "out"
     run_cluster(ClusterArgs(
-        input_files=["/root/reference/tests/data/ont_zymo_1000.trimmed.fq.gz"],
-        output_dir=str(out), threads=4,
+        input_files=[str(community.reads)], output_dir=str(out), threads=4,
     ))
     assert not s1._ENCODE_CACHE  # nothing stored for uncached parses
-    res = validate_asvs(
-        str(out / "final_asvs.fasta"),
-        "/root/reference/tests/data/zymo_ref_asvs.fa.gz",
-    )
-    assert len(res) == 18 and all(r.nm == 0 for r in res)
+    res = validate_asvs(str(out / "final_asvs.fasta"), str(community.templates))
+    assert len(res) == community.n_templates and all(r.nm == 0 for r in res)
 
 
 def test_streamed_count_matches_oracle_with_rc_headers(tmp_path, monkeypatch):

@@ -59,15 +59,14 @@ def test_mm_hash64_planes():
     assert got.tolist() == want.tolist()
 
 
-def test_device_kmer_pipeline_flag(tmp_path, monkeypatch):
+def test_device_kmer_pipeline_flag(tmp_path, monkeypatch, community):
     """SAVONT_DEVICE_KMERS=1 routes stage-1 extraction through the device
     batch kernel with identical counted output."""
     from savont_tpu.config import ClusterArgs
     from savont_tpu.pipeline import stage1_kmers
 
     args = ClusterArgs(
-        input_files=["/root/reference/tests/data/ont_zymo_1000.trimmed.fq.gz"],
-        output_dir=str(tmp_path), threads=2,
+        input_files=[str(community.reads)], output_dir=str(tmp_path), threads=2,
     )
     host_k, host_c = stage1_kmers.read_to_split_kmers(args)
     monkeypatch.setenv("SAVONT_DEVICE_KMERS", "1")

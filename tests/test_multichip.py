@@ -39,7 +39,7 @@ def test_sharded_classify_nm():
     reference (min NM) must be its known source."""
     import jax.numpy as jnp
 
-    from savont_tpu.ops.align_jax import smooth_lo
+    from savont_tpu.ops.align import smooth_lo
     from savont_tpu.parallel.mesh import make_mesh, shard_reads, sharded_classify_nm
 
     if len(jax.devices()) < 8:
@@ -204,52 +204,6 @@ def test_stage7_mesh_backend_end_to_end(tmp_path, monkeypatch):
         a = (outs["host"] / rel).read_bytes()
         b = (outs["mesh"] / rel).read_bytes()
         assert a == b, f"{rel} differs between host and mesh stage-7"
-
-
-@pytest.mark.slow
-def test_stage7_mesh_pallas_kernel_matches_scan():
-    """The Mosaic kernel option of the mesh stage-7 step must produce the
-    same tie-break results and abundances as the XLA scan kernel (both run
-    on smooth bands; pallas in interpret mode on the CPU mesh)."""
-    import numpy as np
-
-    from savont_tpu.parallel import mesh as mesh_mod
-    from savont_tpu.parallel.mesh import make_mesh, mesh_stage7_tie_break
-
-    rng = np.random.default_rng(17)
-    BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
-    A = 3
-    asvs = [rng.choice(BASES, 220).tobytes() for _ in range(A)]
-    pairs, rr, ca = [], [], []
-    for r in range(8):
-        b = bytearray(asvs[r % A])
-        for p in rng.choice(len(b), 5, replace=False):
-            b[p] = b"ACGT"[rng.integers(4)]
-        read = bytes(b)
-        for a in sorted({r % A, (r + 2) % A}):
-            pairs.append((read, asvs[a]))
-            rr.append(r)
-            ca.append(a)
-    mesh = make_mesh(4)
-    import os
-
-    os.environ["SAVONT_MESH_KERNEL"] = "scan"
-    try:
-        best_s, abund_s, count_s = mesh_stage7_tie_break(
-            pairs, np.array(rr), np.array(ca), 8, A, band=64, mesh=mesh
-        )
-        os.environ["SAVONT_MESH_KERNEL"] = "pallas-interpret"
-        best_p, abund_p, count_p = mesh_stage7_tie_break(
-            pairs, np.array(rr), np.array(ca), 8, A, band=64, mesh=mesh
-        )
-    finally:
-        del os.environ["SAVONT_MESH_KERNEL"]
-    assert count_s == count_p
-    assert np.allclose(abund_s, abund_p)
-    for a, b in zip(best_s, best_p):
-        assert (a is None) == (b is None)
-        if a is not None:
-            assert (a.score, a.nm) == (b.score, b.nm)
 
 
 def _mesh_workload(n_reads=24, A=3, L=260, seed=29):

@@ -1,5 +1,6 @@
 """Pipeline mode tests: pooled samples, low-polymorphism, second replicate,
-export of two real runs (mirrors integration_test.rs:312-369, 660-812)."""
+export of two runs (mirrors integration_test.rs:312-369, 660-812).  The
+two "replicates" are the two halves of the seeded 1,000-read community."""
 import gzip
 from pathlib import Path
 
@@ -10,11 +11,19 @@ from savont_tpu.config import ClusterArgs, ExportArgs
 from savont_tpu.pipeline.asv import run_cluster
 from savont_tpu.pipeline.export import export
 
-REF_DATA = Path("/root/reference/tests/data")
-READS = REF_DATA / "ont_zymo_1000.trimmed.fq.gz"
-READS2 = REF_DATA / "ont_zymo_1000_2.trimmed.fq.gz"
-
 RNG = np.random.default_rng(31)
+
+
+@pytest.fixture(scope="module")
+def replicates(community, tmp_path_factory):
+    """The community's reads split into two FASTQ files of 500 reads each."""
+    lines = community.reads.read_text().splitlines(keepends=True)
+    half = len(lines) // 8 * 4
+    out = tmp_path_factory.mktemp("replicates")
+    paths = (out / "rep1.fastq", out / "rep2.fastq")
+    paths[0].write_text("".join(lines[:half]))
+    paths[1].write_text("".join(lines[half:]))
+    return paths
 
 
 def _mutate(seq: bytes, rate: float) -> bytes:
@@ -30,11 +39,10 @@ def _write_fastq(path: Path, reads: list[bytes], qual_char: str = "Z") -> None:
             f.write(f"@synthread_{i}\n{r.decode()}\n+\n{qual_char * len(r)}\n")
 
 
-@pytest.mark.skipif(not READS.exists(), reason="bundled data unavailable")
-def test_pooled_samples(tmp_path):
+def test_pooled_samples(tmp_path, replicates):
     out = tmp_path / "pooled"
     args = ClusterArgs(
-        input_files=[str(READS), str(READS2)],
+        input_files=[str(p) for p in replicates],
         output_dir=str(out),
         threads=4,
         pooled_samples=True,
@@ -81,12 +89,11 @@ def test_low_polymorphism_auto(tmp_path):
     assert any(s in template.decode() or template.decode().find(s[:1000]) >= 0 or len(s) > 1200 for s in seqs)
 
 
-@pytest.mark.skipif(not READS2.exists(), reason="bundled data unavailable")
-def test_export_two_real_runs(tmp_path):
+def test_export_two_real_runs(tmp_path, replicates):
     out1 = tmp_path / "r1"
     out2 = tmp_path / "r2"
-    run_cluster(ClusterArgs(input_files=[str(READS)], output_dir=str(out1), threads=4, min_cluster_size=5))
-    run_cluster(ClusterArgs(input_files=[str(READS2)], output_dir=str(out2), threads=4, min_cluster_size=5))
+    run_cluster(ClusterArgs(input_files=[str(replicates[0])], output_dir=str(out1), threads=4, min_cluster_size=5))
+    run_cluster(ClusterArgs(input_files=[str(replicates[1])], output_dir=str(out2), threads=4, min_cluster_size=5))
     merged = tmp_path / "merged"
     export(ExportArgs(input_dirs=[str(out1), str(out2)], output_dir=str(merged)))
 
@@ -110,48 +117,45 @@ def test_export_two_real_runs(tmp_path):
     assert shared > 0, "no ASVs shared between replicates — merge may be broken"
 
 
-@pytest.mark.skipif(not READS.exists(), reason="bundled data unavailable")
-def test_resume_checkpoint(tmp_path):
+def test_resume_checkpoint(tmp_path, community):
     """--resume: second run reuses the stage-3 checkpoint and produces the
     same ASVs."""
     out = tmp_path / "resume_out"
-    args = ClusterArgs(input_files=[str(READS)], output_dir=str(out), threads=4, resume=True)
+    args = ClusterArgs(input_files=[str(community.reads)], output_dir=str(out), threads=4, resume=True)
     run_cluster(args)
     first = (out / "final_asvs.fasta").read_text()
     assert (out / "temp" / "checkpoint_stage3.pkl").exists()
     import time as _t
 
     t0 = _t.time()
-    args2 = ClusterArgs(input_files=[str(READS)], output_dir=str(out), threads=4, resume=True)
+    args2 = ClusterArgs(input_files=[str(community.reads)], output_dir=str(out), threads=4, resume=True)
     run_cluster(args2)
     second = (out / "final_asvs.fasta").read_text()
     assert first == second
 
 
-@pytest.mark.skipif(not READS.exists(), reason="bundled data unavailable")
-def test_use_hpc_end_to_end_zymo(tmp_path):
-    """--use-hpc on the real Zymo reads, NM=0 oracle.  The vote path
+def test_use_hpc_end_to_end_zymo(tmp_path, community):
+    """--use-hpc on the seeded community, NM=0 oracle.  The vote path
     HPC-compresses every oriented read with min-run quality and runs the
     consensus in HPC space (alignment.rs:357-377 + utils.rs:135-184,
     semantics-faithful as of round 4); this pins the contract end-to-end."""
     from savont_tpu.validate import validate_asvs
 
     out = tmp_path / "hpc_zymo"
-    run_cluster(ClusterArgs(input_files=[str(READS)], output_dir=str(out), threads=4, use_hpc=True))
-    results = validate_asvs(str(out / "final_asvs.fasta"), str(REF_DATA / "zymo_ref_asvs.fa.gz"))
-    assert len(results) >= 18
+    run_cluster(ClusterArgs(input_files=[str(community.reads)], output_dir=str(out), threads=4, use_hpc=True))
+    results = validate_asvs(str(out / "final_asvs.fasta"), str(community.templates))
+    assert len(results) == community.n_templates
     assert all(r.nm == 0 for r in results)
 
 
-@pytest.mark.skipif(not READS.exists(), reason="bundled data unavailable")
-def test_use_blockmers_end_to_end_zymo(tmp_path):
-    """--use-blockmers on the real Zymo reads, NM=0 oracle.  NOTE: the
+def test_use_blockmers_end_to_end_zymo(tmp_path, community):
+    """--use-blockmers on the seeded community, NM=0 oracle.  NOTE: the
     blockmer branch of stage-2/3 sub-clustering uses the Python path (a
     documented perf cliff, not a correctness one)."""
     from savont_tpu.validate import validate_asvs
 
     out = tmp_path / "bm_zymo"
-    run_cluster(ClusterArgs(input_files=[str(READS)], output_dir=str(out), threads=4, use_blockmers=True))
-    results = validate_asvs(str(out / "final_asvs.fasta"), str(REF_DATA / "zymo_ref_asvs.fa.gz"))
-    assert len(results) >= 18
+    run_cluster(ClusterArgs(input_files=[str(community.reads)], output_dir=str(out), threads=4, use_blockmers=True))
+    results = validate_asvs(str(out / "final_asvs.fasta"), str(community.templates))
+    assert len(results) == community.n_templates
     assert all(r.nm == 0 for r in results)

@@ -1,14 +1,14 @@
-"""Opt-in scale test (SAVONT_RUN_SLOW=1): 20k synthetic reads from 10 Zymo
-templates must stay NM=0-perfect and finish in linear-ish time.  Guards the
+"""Opt-in scale test (SAVONT_RUN_SLOW=1): the seeded 20k-read mock community
+(db/community.py) must stay NM=0-perfect and finish in linear-ish time.  Guards the
 vectorized stage-3 paths whose dict-loop ancestors were superlinear in
 cluster depth."""
-import gzip
 import os
-import shutil
 import time
+from pathlib import Path
 
-import numpy as np
 import pytest
+
+REPO = Path(__file__).resolve().parent.parent
 
 pytestmark = pytest.mark.skipif(
     not os.environ.get("SAVONT_RUN_SLOW"), reason="set SAVONT_RUN_SLOW=1 to run"
@@ -17,47 +17,19 @@ pytestmark = pytest.mark.skipif(
 
 def test_20k_synthetic_scale(tmp_path):
     from savont_tpu.config import ClusterArgs
-    from savont_tpu.io.fastx import read_fastx
-    from savont_tpu.ops.encode import revcomp_bytes
+    from savont_tpu.db.community import write_community
     from savont_tpu.pipeline.asv import run_cluster
     from savont_tpu.validate import validate_asvs
 
-    ref_fa = "/root/reference/tests/data/zymo_ref_asvs.fa.gz"
-    refs = [(r.id, r.seq.upper()) for r in read_fastx(ref_fa)]
-    seen, picked = set(), []
-    for rid, seq in refs:
-        contig = rid.split("::")[1].split(":")[0]
-        if contig not in seen and 1300 < len(seq) < 1700:
-            seen.add(contig)
-            picked.append(seq)
-    picked = picked[:10]
-    rng = np.random.default_rng(42)
-    BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
-    path = tmp_path / "synth.fq.gz"
-    with gzip.open(path, "wt") as out:
-        for ti, seq in enumerate(picked):
-            arr = np.frombuffer(seq, dtype=np.uint8)
-            for i in range(2000):
-                b = arr.copy()
-                nsub = rng.binomial(len(b), 0.015)
-                pos = rng.choice(len(b), nsub, replace=False)
-                b[pos] = BASES[(np.searchsorted(BASES, b[pos]) + rng.integers(1, 4, nsub)) % 4]
-                s = b.tobytes()
-                if rng.random() < 0.3:
-                    p = int(rng.integers(50, len(s) - 50))
-                    s = s[:p] + s[p + int(rng.integers(1, 3)):]
-                if rng.random() < 0.5:
-                    s = revcomp_bytes(s)
-                out.write(f"@t{ti}_r{i}\n{s.decode()}\n+\n{'I' * len(s)}\n")
-
+    comm = write_community(tmp_path / "data", 20000)
     t0 = time.time()
     out_dir = tmp_path / "out"
-    run_cluster(ClusterArgs(input_files=[str(path)], output_dir=str(out_dir), threads=4))
+    run_cluster(ClusterArgs(input_files=[str(comm.reads)], output_dir=str(out_dir), threads=4))
     wall = time.time() - t0
-    res = validate_asvs(str(out_dir / "final_asvs.fasta"), ref_fa)
+    res = validate_asvs(str(out_dir / "final_asvs.fasta"), str(comm.templates))
     assert res, "no ASVs"
     assert all(r.nm == 0 for r in res), [r.nm for r in res]
-    assert len(res) >= 8
+    assert len(res) == comm.n_templates
     assert wall < 300, f"20k reads took {wall:.0f}s — superlinear regression?"
 
 
@@ -72,41 +44,16 @@ def test_5k_native_vs_python_determinism(tmp_path):
     import subprocess
     import sys
 
-    from savont_tpu.io.fastx import read_fastx
-    from savont_tpu.ops.encode import revcomp_bytes
+    from savont_tpu.db.community import write_community
 
-    ref_fa = "/root/reference/tests/data/zymo_ref_asvs.fa.gz"
-    refs = [(r.id, r.seq.upper()) for r in read_fastx(ref_fa)]
-    seen, picked = set(), []
-    for rid, seq in refs:
-        contig = rid.split("::")[1].split(":")[0]
-        if contig not in seen and 1300 < len(seq) < 1700:
-            seen.add(contig)
-            picked.append(seq)
-    picked = picked[:10]
-    rng = np.random.default_rng(1234)
-    BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
-    path = tmp_path / "synth5k.fq.gz"
-    with gzip.open(path, "wt") as out:
-        for ti, seq in enumerate(picked):
-            arr = np.frombuffer(seq, dtype=np.uint8)
-            for i in range(500):
-                b = arr.copy()
-                nsub = rng.binomial(len(b), 0.02)
-                pos = rng.choice(len(b), nsub, replace=False)
-                b[pos] = BASES[(np.searchsorted(BASES, b[pos]) + rng.integers(1, 4, nsub)) % 4]
-                s = b.tobytes()
-                if rng.random() < 0.5:
-                    s = revcomp_bytes(s)
-                out.write(f"@t{ti}_r{i}\n{s.decode()}\n+\n{'I' * len(s)}\n")
-
+    path = write_community(tmp_path / "data", 5000).reads
     outs = {}
     for tag, extra_env in [("native", {}), ("python", {"SAVONT_NO_NATIVE": "1"})]:
         out_dir = tmp_path / tag
         env = dict(os.environ, **extra_env)
         r = subprocess.run(
             [sys.executable, "-m", "savont_tpu", "asv", str(path), "-o", str(out_dir), "-t", "4"],
-            cwd="/root/repo", env=env, capture_output=True, text=True, timeout=600,
+            cwd=REPO, env=env, capture_output=True, text=True, timeout=600,
         )
         assert r.returncode == 0, r.stderr[-2000:]
         outs[tag] = out_dir

@@ -71,60 +71,6 @@ def test_stage4_mesh_backend_end_to_end(tmp_path, monkeypatch, use_hpc):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
-@pytest.mark.slow
-def test_stage4_mesh_pallas_payload_end_to_end(tmp_path, monkeypatch):
-    """Stage-4 pileups with the Mosaic payload forward (interpret mode on
-    the CPU mesh; SAVONT_MESH_KERNEL=pallas-interpret) must stay
-    byte-identical to the host run.  Short 2-4 bp deletions are planted so
-    some corridors advance by 2/row — the dl<=2 Pallas path — while the
-    routing keeps any larger jump on the XLA step."""
-    import gzip as _gzip
-
-    from savont_tpu.config import ClusterArgs
-    from savont_tpu.ops.encode import revcomp_bytes
-    from savont_tpu.pipeline.asv import run_cluster
-
-    rng = np.random.default_rng(41)
-    L = 1300  # above the 1100 min_read_length default
-    tpl = bytearray(rng.choice(BASES, L).tobytes())
-    reads = []
-    for i in range(24):
-        b = bytearray(tpl)
-        for p in rng.choice(len(b), 3, replace=False):
-            b[p] = b"ACGT"[rng.integers(4)]
-        if i % 3 == 0:  # short deletion -> dl=2 rows in the corridor
-            p = int(rng.integers(60, L - 80))
-            del b[p : p + int(rng.integers(2, 5))]
-        r = bytes(b)
-        reads.append(revcomp_bytes(r) if i % 2 else r)
-    fq = tmp_path / "d2reads.fq.gz"
-    with _gzip.open(fq, "wt") as f:
-        for i, r in enumerate(reads):
-            f.write(f"@r{i}\n{r.decode()}\n+\n{'Z' * len(r)}\n")
-
-    outs = {}
-    for tag in ("host", "mesh"):
-        if tag == "mesh":
-            monkeypatch.setenv("SAVONT_STAGE4_BACKEND", "mesh")
-            monkeypatch.setenv("SAVONT_MESH_KERNEL", "pallas-interpret")
-        else:
-            monkeypatch.delenv("SAVONT_STAGE4_BACKEND", raising=False)
-            monkeypatch.delenv("SAVONT_MESH_KERNEL", raising=False)
-        out = tmp_path / f"pp_{tag}"
-        run_cluster(
-            ClusterArgs(
-                input_files=[str(fq)], output_dir=str(out), threads=2,
-                min_cluster_size=5,
-            )
-        )
-        outs[tag] = out
-    for rel in ("final_asvs.fasta", "feature-table.tsv"):
-        a = (outs["host"] / rel).read_bytes()
-        b = (outs["mesh"] / rel).read_bytes()
-        assert a == b, f"{rel} differs between host and pallas-payload mesh stage-4"
-
-
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
 def test_stage4_mesh_matrices_match_host(tmp_path, monkeypatch):
     """Direct count-matrix parity: capture the host PileupMatrix list and
     the mesh one over the same consensus set; every matrix must be equal."""
